@@ -18,11 +18,11 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from longphase_s_tpu.core.phase_algo import PhaseParams  # noqa: E402
-from longphase_s_tpu.models.haplotag import HaplotagConfig, run_haplotag  # noqa: E402
-from longphase_s_tpu.models.phase import PhaseConfig, run_phase  # noqa: E402
-from longphase_s_tpu.models.somatic import SomaticConfig, run_somatic_haplotag  # noqa: E402
-from longphase_s_tpu.testing.simulate import (make_fixture,  # noqa: E402
+from longphase_s_jax.core.phase_algo import PhaseParams  # noqa: E402
+from longphase_s_jax.models.haplotag import HaplotagConfig, run_haplotag  # noqa: E402
+from longphase_s_jax.models.phase import PhaseConfig, run_phase  # noqa: E402
+from longphase_s_jax.models.somatic import SomaticConfig, run_somatic_haplotag  # noqa: E402
+from longphase_s_jax.testing.simulate import (make_fixture,  # noqa: E402
                                               make_somatic_fixture)
 
 REF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -30,7 +30,7 @@ REF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 
 # --realism: run every fixture under testing.simulate.REALISM_PROFILE
 # (homopolymer-conditioned indel errors, SV-breakpoint split/supplementary
-# reads, chimeras) — VERDICT r4 #6's closest reachable proxy for real
+# reads, chimeras) — the closest reachable proxy for real
 # read-error structure. modcall keeps the plain profile (its MM/ML fixture
 # builder is position-anchored).
 REALISM = "--realism" in sys.argv
@@ -41,7 +41,7 @@ def vcf_rows(path):
 
 
 def bam_tags(path):
-    from longphase_s_tpu.io.bam import BamReader
+    from longphase_s_jax.io.bam import BamReader
     out = []
     for rec in BamReader(path):
         out.append((rec.qname, rec.flag, rec.pos, rec.get_tag("HP"),
@@ -69,7 +69,7 @@ def run_case(mode, seed, work):
         ours = os.path.join(work, "ours")
         run_phase(PhaseConfig(
             snp_file=fix["vcf"], bam_files=[fix["bam"]],
-            fasta_file=fix["fasta"], result_prefix=ours, engine="tpu",
+            fasta_file=fix["fasta"], result_prefix=ours, engine="device",
             is_ont=(mode == "ont"), is_pb=(mode != "ont"),
             phase_indel=(mode == "indels"),
             params=PhaseParams(is_ont=(mode == "ont"),
@@ -108,7 +108,7 @@ def run_case(mode, seed, work):
         run_phase(PhaseConfig(
             snp_file=fix["vcf"], bam_files=[fix["bam"]],
             fasta_file=fix["fasta"], result_prefix=ours,
-            sv_file=fix["sv_vcf"], mod_file=fix["mod_vcf"], engine="tpu",
+            sv_file=fix["sv_vcf"], mod_file=fix["mod_vcf"], engine="device",
             params=PhaseParams()))
         for suffix in (".vcf", "_SV.vcf", "_mod.vcf"):
             if vcf_rows(golden + suffix) != vcf_rows(ours + suffix):
@@ -128,8 +128,8 @@ def run_case(mode, seed, work):
             return "haplotag svmod tags differ"
         return None
     if mode == "modcall":
-        from longphase_s_tpu.models.modcall import ModCallConfig, run_modcall
-        from longphase_s_tpu.testing.simulate import make_meth_fixture
+        from longphase_s_jax.models.modcall import ModCallConfig, run_modcall
+        from longphase_s_jax.testing.simulate import make_meth_fixture
 
         fix = make_meth_fixture(
             os.path.join(work, "fix"), seed=seed,

@@ -6,9 +6,9 @@ inputs/params) must be ignored."""
 
 import pytest
 
-from longphase_s_tpu.models import phase as phase_mod
-from longphase_s_tpu.models.phase import PhaseConfig, run_phase
-from longphase_s_tpu.testing.simulate import make_multichrom_fixture
+from longphase_s_jax.models import phase as phase_mod
+from longphase_s_jax.models.phase import PhaseConfig, run_phase
+from longphase_s_jax.testing.simulate import make_multichrom_fixture
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +69,7 @@ def test_stale_checkpoint_ignored(fix, tmp_path):
     ckpt_dir = str(tmp_path / "ckpt2")
     first = run_phase(_cfg(fix, tmp_path, "first", ckpt=ckpt_dir))
     # different params -> different fingerprint -> full recompute, same VCF
-    from longphase_s_tpu.core.phase_algo import PhaseParams
+    from longphase_s_jax.core.phase_algo import PhaseParams
 
     other = run_phase(_cfg(fix, tmp_path, "other", ckpt=ckpt_dir,
                            params=PhaseParams(distance=299999)))
@@ -83,13 +83,13 @@ def test_stale_checkpoint_ignored(fix, tmp_path):
 def test_somatic_kill_and_resume(tmp_path, monkeypatch):
     """A somatic run killed mid-extraction resumes from the completed
     per-contig pass checkpoints and produces byte-identical _sc.vcf +
-    tagged BAM (VERDICT r2 #7; three BAM passes dominate WGS runtime)."""
-    from longphase_s_tpu.core import somatic_fast
-    from longphase_s_tpu.io.bam import BamReader
-    from longphase_s_tpu.models.phase import PhaseConfig, run_phase
-    from longphase_s_tpu.models.somatic import (SomaticConfig,
+    tagged BAM (three BAM passes dominate WGS runtime)."""
+    from longphase_s_jax.core import somatic_fast
+    from longphase_s_jax.io.bam import BamReader
+    from longphase_s_jax.models.phase import PhaseConfig, run_phase
+    from longphase_s_jax.models.somatic import (SomaticConfig,
                                                 run_somatic_haplotag)
-    from longphase_s_tpu.testing.simulate import \
+    from longphase_s_jax.testing.simulate import \
         make_multichrom_somatic_fixture
 
     fix = make_multichrom_somatic_fixture(str(tmp_path / "fix"), seed=19,
@@ -166,8 +166,8 @@ def test_somatic_kill_and_resume(tmp_path, monkeypatch):
 def test_modcall_kill_and_resume(tmp_path, monkeypatch):
     """A modcall run killed mid-loop resumes from the per-contig line
     checkpoints with a byte-identical VCF."""
-    from longphase_s_tpu.models.modcall import ModCallConfig, run_modcall
-    from longphase_s_tpu.testing.simulate import make_multichrom_meth_fixture
+    from longphase_s_jax.models.modcall import ModCallConfig, run_modcall
+    from longphase_s_jax.testing.simulate import make_multichrom_meth_fixture
 
     fix = make_multichrom_meth_fixture(str(tmp_path / "fix"), seed=23,
                                        n_chroms=3, base_length=100000)
@@ -180,7 +180,7 @@ def test_modcall_kill_and_resume(tmp_path, monkeypatch):
 
     run_modcall(cfg("straight"))
 
-    from longphase_s_tpu.models import modcall_fast
+    from longphase_s_jax.models import modcall_fast
     real = modcall_fast.run_chrom_fast
     # patch the name run_modcall imports (module-local import inside loop)
     calls = {"n": 0}
@@ -213,7 +213,7 @@ def test_modcall_kill_and_resume(tmp_path, monkeypatch):
         strip(str(tmp_path / "resumed.vcf"))
 
 
-def test_checkpoint_with_tpu_engine_multichip(fix, tmp_path, monkeypatch):
+def test_checkpoint_with_device_engine_multichip(fix, tmp_path, monkeypatch):
     """The mesh-batched path checkpoints through the same record() hook."""
     import jax
 
@@ -221,7 +221,7 @@ def test_checkpoint_with_tpu_engine_multichip(fix, tmp_path, monkeypatch):
         pytest.skip("needs a multi-device mesh")
     monkeypatch.setenv("LPS_MULTICHIP", "1")
     ckpt_dir = str(tmp_path / "ckpt3")
-    a = run_phase(_cfg(fix, tmp_path, "tpu_a", ckpt=ckpt_dir, engine="tpu"))
-    b = run_phase(_cfg(fix, tmp_path, "tpu_b", ckpt=ckpt_dir, engine="tpu"))
+    a = run_phase(_cfg(fix, tmp_path, "dev_a", ckpt=ckpt_dir, engine="device"))
+    b = run_phase(_cfg(fix, tmp_path, "dev_b", ckpt=ckpt_dir, engine="device"))
     assert a == b
-    assert _vcf(tmp_path, "tpu_a") == _vcf(tmp_path, "tpu_b")
+    assert _vcf(tmp_path, "dev_a") == _vcf(tmp_path, "dev_b")

@@ -9,10 +9,10 @@ Both directions against htslib (linked by the reference binary):
 
 import subprocess
 
-from longphase_s_tpu.io.bam import BamReader
-from longphase_s_tpu.io.cram import CramReader, CramWriter
-from longphase_s_tpu.io.fasta import FastaFile
-from longphase_s_tpu.models.haplotag import HaplotagConfig, run_haplotag
+from longphase_s_jax.io.bam import BamReader
+from longphase_s_jax.io.cram import CramReader, CramWriter
+from longphase_s_jax.io.fasta import FastaFile
+from longphase_s_jax.models.haplotag import HaplotagConfig, run_haplotag
 from tests.test_golden_haplotag import _tags
 
 
@@ -104,9 +104,9 @@ def test_haplotag_cram_in_cram_out(reference_binary, small_fixture, tmp_path):
 def test_somatic_cram_input(reference_binary, tmp_path):
     """Somatic pipeline with CRAM tumor input (htslib-written) matches the
     BAM-input run."""
-    from longphase_s_tpu.models.somatic import (SomaticConfig,
+    from longphase_s_jax.models.somatic import (SomaticConfig,
                                                 run_somatic_haplotag)
-    from longphase_s_tpu.testing.simulate import make_somatic_fixture
+    from longphase_s_jax.testing.simulate import make_somatic_fixture
 
     fix = make_somatic_fixture(str(tmp_path / "fix"), seed=31, length=150000,
                                purity=0.6, n_somatic=10, n_artifacts=3)
@@ -138,9 +138,9 @@ def test_somatic_cram_input(reference_binary, tmp_path):
 def test_somatic_cram_output_fast_path(reference_binary, tmp_path):
     """somatic_haplotag --cram stays on the native fast path: the CRAM's
     tags must match the reference's BAM output and htslib must read it."""
-    from longphase_s_tpu.models.somatic import (SomaticConfig,
+    from longphase_s_jax.models.somatic import (SomaticConfig,
                                                 run_somatic_haplotag)
-    from longphase_s_tpu.testing.simulate import make_somatic_fixture
+    from longphase_s_jax.testing.simulate import make_somatic_fixture
 
     fx = make_somatic_fixture(str(tmp_path / "fix"), seed=17, length=300000)
     phased = str(tmp_path / "phased")
@@ -179,7 +179,7 @@ def _fields_full(r):
 
 
 def test_cram31_reader_vs_htslib(reference_binary, small_fixture, tmp_path):
-    """CRAM 3.1 interop (VERDICT r4 #7): an htslib-written version-3.1 CRAM
+    """CRAM 3.1 interop: an htslib-written version-3.1 CRAM
     (rANS Nx16 data blocks + tok3 read names, which the reference CLI
     cannot emit — produced by the htslib-linked tools/bam2cram31 oracle)
     must decode to records byte-identical to the source BAM."""
@@ -208,8 +208,8 @@ def test_cram31_reader_vs_htslib(reference_binary, small_fixture, tmp_path):
 
     # the pure-Python fallback decoder must read the same records, and its
     # rANS Nx16 / tok3 paths must actually run (not a gzip-only file)
-    from longphase_s_tpu.io.cram import RANS_PR, TOK3
-    import longphase_s_tpu.io.cram as cram_mod
+    from longphase_s_jax.io.cram import RANS_PR, TOK3
+    import longphase_s_jax.io.cram as cram_mod
     methods = set()
     orig = cram_mod._uncompress
 

@@ -13,8 +13,8 @@ import textwrap
 
 import pytest
 
-from longphase_s_tpu.models.phase import PhaseConfig, run_phase
-from longphase_s_tpu.testing.simulate import make_multichrom_fixture
+from longphase_s_jax.models.phase import PhaseConfig, run_phase
+from longphase_s_jax.testing.simulate import make_multichrom_fixture
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +50,7 @@ WORKER = textwrap.dedent("""
     import jax
     jax.config.update("jax_platforms", "cpu")
     cfg_json, spec = sys.argv[1], sys.argv[2]
-    from longphase_s_tpu.models.phase import PhaseConfig, run_phase
+    from longphase_s_jax.models.phase import PhaseConfig, run_phase
     cfg = PhaseConfig(**json.loads(cfg_json), dist=spec)
     run_phase(cfg)
 """)
@@ -89,7 +89,7 @@ def test_two_process_run_matches_single(fix, tmp_path):
 
 
 def test_four_process_run_matches_single(fix, tmp_path):
-    """nprocs=4 (VERDICT r2 #9): four contig-sharded processes, one writer
+    """nprocs=4: four contig-sharded processes, one writer
     gather — VCF must still match the single-process run byte-for-byte."""
     single = tmp_path / "single4"
     run_phase(PhaseConfig(snp_file=fix["vcf"], bam_files=[fix["bam"]],
@@ -118,7 +118,7 @@ def test_four_process_run_matches_single(fix, tmp_path):
 
 
 def test_shard_contigs_single_process_is_identity():
-    from longphase_s_tpu.parallel import distributed as dist
+    from longphase_s_jax.parallel import distributed as dist
 
     contigs = ["chr1", "chr2", "chr3"]
     assert dist.shard_contigs(contigs) == contigs  # process_count() == 1
@@ -131,7 +131,7 @@ WORKER_PURITY = textwrap.dedent("""
     import jax
     jax.config.update("jax_platforms", "cpu")
     cfg_json, spec = sys.argv[1], sys.argv[2]
-    from longphase_s_tpu.models.somatic import SomaticConfig, run_estimate_purity
+    from longphase_s_jax.models.somatic import SomaticConfig, run_estimate_purity
     cfg = SomaticConfig(**json.loads(cfg_json), dist=spec)
     p = run_estimate_purity(cfg)
     print(f"PURITY={p!r}")
@@ -141,8 +141,8 @@ WORKER_PURITY = textwrap.dedent("""
 def test_two_process_estimate_purity_matches_single(tmp_path):
     """estimate_purity with contig-sharded extraction + all-gathered purity
     feature points must reproduce the single-process purity and report."""
-    from longphase_s_tpu.models.somatic import SomaticConfig, run_estimate_purity
-    from longphase_s_tpu.testing.simulate import make_multichrom_somatic_fixture
+    from longphase_s_jax.models.somatic import SomaticConfig, run_estimate_purity
+    from longphase_s_jax.testing.simulate import make_multichrom_somatic_fixture
 
     fix = make_multichrom_somatic_fixture(str(tmp_path / "fix"), seed=81,
                                           n_chroms=3)
@@ -192,7 +192,7 @@ WORKER_COMBO = textwrap.dedent("""
     import jax
     jax.config.update("jax_platforms", "cpu")
     cfg_json, spec = sys.argv[1], sys.argv[2]
-    from longphase_s_tpu.models.phase import PhaseConfig, run_phase
+    from longphase_s_jax.models.phase import PhaseConfig, run_phase
     cfg = PhaseConfig(**json.loads(cfg_json), dist=spec)
     run_phase(cfg)
 """)
@@ -213,7 +213,7 @@ def test_distributed_multichip_checkpointed_phase(fix, tmp_path):
     cfg = dict(snp_file=fix["vcf"], bam_files=[fix["bam"]],
                fasta_file=fix["fasta"],
                result_prefix=str(tmp_path / "combo"),
-               num_threads=1, is_pb=True, engine="tpu",
+               num_threads=1, is_pb=True, engine="device",
                checkpoint_dir=ckpt)
 
     def run_pair():
@@ -246,7 +246,7 @@ WORKER_SOMATIC = textwrap.dedent("""
     import jax
     jax.config.update("jax_platforms", "cpu")
     cfg_json, spec = sys.argv[1], sys.argv[2]
-    from longphase_s_tpu.models.somatic import SomaticConfig, run_somatic_haplotag
+    from longphase_s_jax.models.somatic import SomaticConfig, run_somatic_haplotag
     cfg = SomaticConfig(**json.loads(cfg_json), dist=spec)
     run_somatic_haplotag(cfg)
 """)
@@ -256,9 +256,9 @@ def test_two_process_somatic_haplotag_matches_single(tmp_path):
     """Distributed somatic_haplotag: contig-sharded extraction/calling/
     tagging with purity-point, flag and tag-segment all-gathers must
     reproduce the single-process tagged BAM and _sc.vcf exactly."""
-    from longphase_s_tpu.io.bam import BamReader
-    from longphase_s_tpu.models.somatic import SomaticConfig, run_somatic_haplotag
-    from longphase_s_tpu.testing.simulate import make_multichrom_somatic_fixture
+    from longphase_s_jax.io.bam import BamReader
+    from longphase_s_jax.models.somatic import SomaticConfig, run_somatic_haplotag
+    from longphase_s_jax.testing.simulate import make_multichrom_somatic_fixture
 
     fix = make_multichrom_somatic_fixture(str(tmp_path / "fix"), seed=82,
                                           n_chroms=3)
@@ -308,7 +308,7 @@ WORKER_HAPLOTAG = textwrap.dedent("""
     import jax
     jax.config.update("jax_platforms", "cpu")
     cfg_json, spec = sys.argv[1], sys.argv[2]
-    from longphase_s_tpu.models.haplotag import HaplotagConfig, run_haplotag
+    from longphase_s_jax.models.haplotag import HaplotagConfig, run_haplotag
     cfg = HaplotagConfig(**json.loads(cfg_json), dist=spec)
     run_haplotag(cfg)
 """)
@@ -317,8 +317,8 @@ WORKER_HAPLOTAG = textwrap.dedent("""
 def test_two_process_haplotag_matches_single(fix, tmp_path):
     """Distributed germline haplotag: sharded tag walks, gathered segments,
     process-0 write — tagged BAM identical to single-process."""
-    from longphase_s_tpu.io.bam import BamReader
-    from longphase_s_tpu.models.haplotag import HaplotagConfig, run_haplotag
+    from longphase_s_jax.io.bam import BamReader
+    from longphase_s_jax.models.haplotag import HaplotagConfig, run_haplotag
 
     phased = str(tmp_path / "phased")
     run_phase(PhaseConfig(snp_file=fix["vcf"], bam_files=[fix["bam"]],
@@ -358,7 +358,7 @@ WORKER_MODCALL = textwrap.dedent("""
     import jax
     jax.config.update("jax_platforms", "cpu")
     cfg_json, spec = sys.argv[1], sys.argv[2]
-    from longphase_s_tpu.models.modcall import ModCallConfig, run_modcall
+    from longphase_s_jax.models.modcall import ModCallConfig, run_modcall
     cfg = ModCallConfig(**json.loads(cfg_json), dist=spec)
     run_modcall(cfg)
 """)
@@ -367,14 +367,14 @@ WORKER_MODCALL = textwrap.dedent("""
 def test_two_process_modcall_matches_single(tmp_path):
     """Distributed modcall: sharded per-chromosome calling, gathered
     result lines, process-0 VCF — identical to single-process."""
-    from longphase_s_tpu.models.modcall import ModCallConfig, run_modcall
-    from longphase_s_tpu.testing.simulate import make_multichrom_meth_fixture
+    from longphase_s_jax.models.modcall import ModCallConfig, run_modcall
+    from longphase_s_jax.testing.simulate import make_multichrom_meth_fixture
 
     try:
         fix = make_multichrom_meth_fixture(str(tmp_path / "fix"), seed=5,
                                            n_chroms=3)
     except (ImportError, AttributeError):
-        from longphase_s_tpu.testing.simulate import make_meth_fixture
+        from longphase_s_jax.testing.simulate import make_meth_fixture
 
         fix = make_meth_fixture(str(tmp_path / "fix"), seed=5)
     base = dict(bam_files=[fix["bam"]], fasta_file=fix["fasta"],

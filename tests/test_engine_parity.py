@@ -1,17 +1,17 @@
-"""TPU engine vs host oracle: identical phasing output on varied fixtures."""
+"""Device engine vs host oracle: identical phasing output on varied fixtures."""
 
 import numpy as np
 import pytest
 
-from longphase_s_tpu.core.alleles import extract_chromosome
-from longphase_s_tpu.core.clip import get_cnv_intervals
-from longphase_s_tpu.core.phase_algo import PhaseParams, phase_chromosome
-from longphase_s_tpu.ops.engine import phase_chromosome_tpu
-from longphase_s_tpu.testing.simulate import make_fixture
+from longphase_s_jax.core.alleles import extract_chromosome
+from longphase_s_jax.core.clip import get_cnv_intervals
+from longphase_s_jax.core.phase_algo import PhaseParams, phase_chromosome
+from longphase_s_jax.ops.engine import phase_chromosome_device
+from longphase_s_jax.testing.simulate import make_fixture
 
 
 def _phase_both(fix, params):
-    from longphase_s_tpu.io import vcf as vcf_io
+    from longphase_s_jax.io import vcf as vcf_io
 
     het = vcf_io.read_het_variants(fix["vcf"])
     chrom = fix["chrom"]
@@ -26,8 +26,8 @@ def _phase_both(fix, params):
     import copy
 
     r_oracle, hp_oracle, _ = phase_chromosome(copy.deepcopy(alns), list(cnv), chrom, params)
-    r_tpu, hp_tpu, _ = phase_chromosome_tpu(copy.deepcopy(alns), list(cnv), chrom, params)
-    return r_oracle, r_tpu, hp_oracle, hp_tpu
+    r_dev, hp_dev, _ = phase_chromosome_device(copy.deepcopy(alns), list(cnv), chrom, params)
+    return r_oracle, r_dev, hp_oracle, hp_dev
 
 
 @pytest.mark.parametrize("seed,error,qual", [
@@ -41,6 +41,6 @@ def test_engine_matches_oracle(tmp_path, seed, error, qual):
                        coverage=25, read_len=8000, snp_rate=0.002,
                        error_rate=error, qual=qual)
     params = PhaseParams()
-    r_oracle, r_tpu, hp_o, hp_t = _phase_both(fix, params)
-    assert r_oracle == r_tpu
+    r_oracle, r_dev, hp_o, hp_t = _phase_both(fix, params)
+    assert r_oracle == r_dev
     assert hp_o == hp_t

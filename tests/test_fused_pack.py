@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from longphase_s_tpu.core.fastpath import merge_observations, pack_flat
-from longphase_s_tpu.core.phase_algo import PhaseParams
-from longphase_s_tpu.ops.fused import device_pair_counts, run_fused_pack_scan
-from longphase_s_tpu.ops.vote_scan import assemble_blocks, run_vote_scan
+from longphase_s_jax.core.fastpath import merge_observations, pack_flat
+from longphase_s_jax.core.phase_algo import PhaseParams
+from longphase_s_jax.ops.fused import device_pair_counts, run_fused_pack_scan
+from longphase_s_jax.ops.vote_scan import assemble_blocks, run_vote_scan
 
 
 def _random_flat(seed, n_reads=40, max_obs=60, n_sites=300):
@@ -58,12 +58,12 @@ def test_device_counts_match_host(seed):
 
 @pytest.mark.parametrize("seed", [5, 6, 7])
 def test_mxu_pack_matches_scatter_pack(seed):
-    """The MXU tile-matmul pair pack (ops/mxu_pack.py, WGS-scale path) must
+    """The Gram tile-matmul pair pack (ops/mxu_pack.py, WGS-scale path) must
     reproduce the scatter pack's count planes element-exactly on
     unique-(read,rank) streams."""
     from functools import partial
 
-    from longphase_s_tpu.ops.mxu_pack import build_tiles, mxu_pair_counts
+    from longphase_s_jax.ops.mxu_pack import build_tiles, mxu_pair_counts
 
     params = PhaseParams()
     obs_pos, obs_allele, obs_qual, offsets, names = _random_flat(seed)
@@ -83,9 +83,10 @@ def test_mxu_pack_matches_scatter_pack(seed):
 
 
 def test_mxu_full_phase_matches_scatter_path(monkeypatch):
-    """End-to-end run_fused_phase parity: MXU path (forced) vs scatter path,
-    including the host read-correction mirror."""
-    from longphase_s_tpu.ops.fused import run_fused_phase
+    """End-to-end run_fused_phase parity: Gram path (forced) vs scatter path,
+    including the host read-correction mirror, with the scan kernel under
+    the Pallas interpreter."""
+    from longphase_s_jax.ops.fused import run_fused_phase
 
     params = PhaseParams()
     obs_pos, obs_allele, obs_qual, offsets, names = _random_flat(8)
@@ -97,11 +98,11 @@ def test_mxu_full_phase_matches_scatter_path(monkeypatch):
     monkeypatch.setenv("LPS_MXU_PACK_MIN", str(1 << 40))
     ps0, ori0 = run_fused_phase(m_read, m_rank, m_allele, m_qok, m_aln,
                                 positions, vtype, n_aln, params,
-                                use_pallas=True, interpret=True)
+                                engine="interpret")
     monkeypatch.setenv("LPS_MXU_PACK_MIN", "1")
     ps1, ori1 = run_fused_phase(m_read, m_rank, m_allele, m_qok, m_aln,
                                 positions, vtype, n_aln, params,
-                                use_pallas=True, interpret=True)
+                                engine="interpret")
     assert (ps0 == ps1).all()
     assert (ori0[ps0 != 0] == ori1[ps1 != 0]).all()
 
@@ -109,7 +110,7 @@ def test_mxu_full_phase_matches_scatter_path(monkeypatch):
 def test_mxu_pack_falls_back_on_duplicates():
     """Streams with duplicate (read, rank) — overlapping split alignments —
     must refuse the tile pack (caller then uses the scatter pack)."""
-    from longphase_s_tpu.ops.mxu_pack import build_tiles
+    from longphase_s_jax.ops.mxu_pack import build_tiles
 
     m_read = np.array([0, 0, 0, 1], np.int32)
     m_rank = np.array([3, 3, 5, 2], np.int32)
@@ -132,7 +133,7 @@ def test_fused_scan_matches_classic(seed):
                            params)
     assigned, hp, bstart = run_fused_pack_scan(
         m_read, m_rank, m_allele, m_qok, positions, vtype, params,
-        use_pallas=True, interpret=True)
+        engine="interpret")
     ps1, ori1 = assemble_blocks(positions, assigned, hp, bstart)
     assert (ps0 == ps1).all()
     assert (ori0 == ori1).all()

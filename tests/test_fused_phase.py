@@ -5,11 +5,11 @@ assemble_blocks -> read_correction_packed)."""
 import numpy as np
 import pytest
 
-from longphase_s_tpu.core import fastpath
-from longphase_s_tpu.core.phase_algo import PhaseParams
-from longphase_s_tpu.ops.fused import run_fused_phase
-from longphase_s_tpu.ops.read_correction import read_correction_packed
-from longphase_s_tpu.ops.vote_scan import run_vote_scan
+from longphase_s_jax.core import fastpath
+from longphase_s_jax.core.phase_algo import PhaseParams
+from longphase_s_jax.ops.fused import run_fused_phase
+from longphase_s_jax.ops.read_correction import read_correction_packed
+from longphase_s_jax.ops.vote_scan import run_vote_scan
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -45,7 +45,7 @@ def test_fused_phase_matches_host(seed):
 
     ps2, ori2 = run_fused_phase(
         m_read, m_rank, m_allele, m_qok, m_aln, positions_u, vtype,
-        len(aln_offsets) - 1, params, use_pallas=False)
+        len(aln_offsets) - 1, params, engine="lax")
     assert np.array_equal(ps1, ps2)
     phased = ps1 != 0
     assert np.array_equal(ori1[phased], ori2[phased])
@@ -55,9 +55,9 @@ def test_flat_path_covers_cnv_intervals(tmp_path, monkeypatch):
     """The flat fast path must no longer bail out on CNV intervals: a
     clip-heavy fixture that yields getCNVInterval hits runs through
     _cnv_filter_flat and matches the oracle engine exactly."""
-    import longphase_s_tpu.core.fastpath as fp
-    from longphase_s_tpu.models.phase import PhaseConfig, run_phase
-    from longphase_s_tpu.testing.simulate import make_fixture
+    import longphase_s_jax.core.fastpath as fp
+    from longphase_s_jax.models.phase import PhaseConfig, run_phase
+    from longphase_s_jax.testing.simulate import make_fixture
 
     fx = make_fixture(str(tmp_path / "fix"), seed=4, length=200000,
                       coverage=60, read_len=6000, snp_rate=0.002,
@@ -77,18 +77,18 @@ def test_flat_path_covers_cnv_intervals(tmp_path, monkeypatch):
                            result_prefix=str(tmp_path / out),
                            num_threads=1, is_pb=True, engine=engine)
 
-    tpu = run_phase(cfg("tpu", "tpu"))
+    device = run_phase(cfg("device", "device"))
     oracle = run_phase(cfg("oracle", "oracle"))
     assert used.get("cnv_flat"), "fixture produced no CNV intervals"
-    assert tpu == oracle
+    assert device == oracle
 
 
 def test_flat_path_covers_svmod(tmp_path, monkeypatch):
     """SV/MOD co-phasing rides the native flat fast path (no object-pipeline
     fallback) and matches the oracle engine."""
-    import longphase_s_tpu.core.fastpath as fp
-    from longphase_s_tpu.models.phase import PhaseConfig, run_phase
-    from longphase_s_tpu.testing.simulate import make_fixture
+    import longphase_s_jax.core.fastpath as fp
+    from longphase_s_jax.models.phase import PhaseConfig, run_phase
+    from longphase_s_jax.testing.simulate import make_fixture
 
     fx = make_fixture(str(tmp_path / "fix"), seed=55, length=150000,
                       coverage=20, read_len=8000, snp_rate=0.0015,
@@ -103,7 +103,7 @@ def test_flat_path_covers_svmod(tmp_path, monkeypatch):
         return r
 
     monkeypatch.setattr(fp, "phase_chromosome_flat", spy)
-    import longphase_s_tpu.models.phase as pm
+    import longphase_s_jax.models.phase as pm
     monkeypatch.setattr(pm, "phase_chromosome_flat", spy, raising=False)
 
     def cfg(out, engine):
@@ -113,12 +113,12 @@ def test_flat_path_covers_svmod(tmp_path, monkeypatch):
                            result_prefix=str(tmp_path / out),
                            num_threads=1, is_pb=True, engine=engine)
 
-    tpu = run_phase(cfg("tpu", "tpu"))
+    device = run_phase(cfg("device", "device"))
     oracle = run_phase(cfg("oracle", "oracle"))
     assert used.get("flat"), "SV/MOD run fell back off the flat fast path"
-    assert tpu == oracle
+    assert device == oracle
     for suffix in (".vcf", "_SV.vcf", "_mod.vcf"):
-        a = (tmp_path / f"tpu{suffix}").read_text().splitlines()
+        a = (tmp_path / f"device{suffix}").read_text().splitlines()
         b = (tmp_path / f"oracle{suffix}").read_text().splitlines()
         assert [l for l in a if not l.startswith("##")] == \
             [l for l in b if not l.startswith("##")]
@@ -128,9 +128,9 @@ def test_streaming_extraction_under_memory_cap(tmp_path, monkeypatch):
     """With LPS_MAX_INMEM_BAM below the file size, extraction streams
     bounded windows through the native scanner/walk and the phase output
     must equal the whole-file-handle run (both engines)."""
-    from longphase_s_tpu import native
-    from longphase_s_tpu.models.phase import PhaseConfig, run_phase
-    from longphase_s_tpu.testing.simulate import make_fixture
+    from longphase_s_jax import native
+    from longphase_s_jax.models.phase import PhaseConfig, run_phase
+    from longphase_s_jax.testing.simulate import make_fixture
 
     fx = make_fixture(str(tmp_path / "fix"), seed=12, length=150000,
                       coverage=20, read_len=9000, snp_rate=0.0015,
@@ -141,7 +141,7 @@ def test_streaming_extraction_under_memory_cap(tmp_path, monkeypatch):
                            fasta_file=fx["fasta"], sv_file=fx["sv_vcf"],
                            mod_file=fx["mod_vcf"],
                            result_prefix=str(tmp_path / out),
-                           num_threads=1, is_pb=True, engine="tpu")
+                           num_threads=1, is_pb=True, engine="device")
 
     normal = run_phase(cfg("normal"))
 

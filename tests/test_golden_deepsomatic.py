@@ -3,9 +3,9 @@ re-derivation from AD/VAF)."""
 
 import subprocess
 
-from longphase_s_tpu.core.phase_algo import PhaseParams
-from longphase_s_tpu.models.phase import PhaseConfig, run_phase
-from longphase_s_tpu.testing.simulate import make_fixture
+from longphase_s_jax.core.phase_algo import PhaseParams
+from longphase_s_jax.models.phase import PhaseConfig, run_phase
+from longphase_s_jax.testing.simulate import make_fixture
 from tests.test_golden_phase import assert_vcfs_match
 
 
@@ -59,7 +59,7 @@ def test_phase_deepsomatic(reference_binary, tmp_path):
     ours = str(tmp_path / "ours")
     cfg = PhaseConfig(snp_file=ds_vcf, bam_files=[fix["bam"]],
                       fasta_file=fix["fasta"], result_prefix=ours,
-                      deepsomatic_output=True, engine="tpu",
+                      deepsomatic_output=True, engine="device",
                       params=PhaseParams())
     run_phase(cfg)
     with open(golden + "_preprocessed.vcf") as f:

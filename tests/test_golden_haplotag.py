@@ -3,8 +3,8 @@ record-for-record (reference phase output feeds both haplotag runs)."""
 
 import subprocess
 
-from longphase_s_tpu.io.bam import BamReader
-from longphase_s_tpu.models.haplotag import HaplotagConfig, run_haplotag
+from longphase_s_jax.io.bam import BamReader
+from longphase_s_jax.models.haplotag import HaplotagConfig, run_haplotag
 
 
 def _tags(bam_path):
@@ -46,10 +46,10 @@ def test_streaming_haplotag_under_memory_cap(reference_binary, small_fixture,
     tags must stay record-identical to the reference binary."""
     import subprocess
 
-    from longphase_s_tpu import native
-    from longphase_s_tpu.io.bam import BamReader
-    from longphase_s_tpu.models.haplotag import HaplotagConfig, run_haplotag
-    from longphase_s_tpu.models import haplotag_fast as hf
+    from longphase_s_jax import native
+    from longphase_s_jax.io.bam import BamReader
+    from longphase_s_jax.models.haplotag import HaplotagConfig, run_haplotag
+    from longphase_s_jax.models import haplotag_fast as hf
 
     fix = small_fixture
     phased = str(tmp_path / "phased")

@@ -6,10 +6,10 @@ import subprocess
 
 import pytest
 
-from longphase_s_tpu.core.phase_algo import PhaseParams
-from longphase_s_tpu.models.phase import PhaseConfig, run_phase
-from longphase_s_tpu.models.haplotag import HaplotagConfig, run_haplotag
-from longphase_s_tpu.testing.simulate import make_fixture
+from longphase_s_jax.core.phase_algo import PhaseParams
+from longphase_s_jax.models.phase import PhaseConfig, run_phase
+from longphase_s_jax.models.haplotag import HaplotagConfig, run_haplotag
+from longphase_s_jax.testing.simulate import make_fixture
 from tests.test_golden_phase import assert_vcfs_match
 from tests.test_golden_haplotag import _tags
 
@@ -22,7 +22,7 @@ def indel_fixture(tmp_path_factory):
                         error_rate=0.02, qual=25)
 
 
-@pytest.mark.parametrize("engine", ["oracle", "tpu"])
+@pytest.mark.parametrize("engine", ["oracle", "device"])
 def test_phase_indels(reference_binary, indel_fixture, tmp_path, engine):
     fix = indel_fixture
     golden = str(tmp_path / "golden")
@@ -69,6 +69,6 @@ def test_phase_ont_mode(reference_binary, tmp_path):
     ours = str(tmp_path / "ours")
     cfg = PhaseConfig(snp_file=fix["vcf"], bam_files=[fix["bam"]],
                       fasta_file=fix["fasta"], result_prefix=ours,
-                      is_ont=True, engine="tpu", params=PhaseParams(is_ont=True))
+                      is_ont=True, engine="device", params=PhaseParams(is_ont=True))
     run_phase(cfg)
     assert_vcfs_match(golden + ".vcf", ours + ".vcf")

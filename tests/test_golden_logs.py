@@ -15,8 +15,8 @@ def test_phase_dot(reference_binary, small_fixture, tmp_path):
                     "-s", fix["vcf"], "-b", fix["bam"], "-r", fix["fasta"],
                     "-o", str(golden_dir / "out")],
                    check=True, capture_output=True, cwd=golden_dir)
-    from longphase_s_tpu.core.phase_algo import PhaseParams
-    from longphase_s_tpu.models.phase import PhaseConfig, run_phase
+    from longphase_s_jax.core.phase_algo import PhaseParams
+    from longphase_s_jax.models.phase import PhaseConfig, run_phase
 
     cwd = os.getcwd()
     try:
@@ -24,7 +24,7 @@ def test_phase_dot(reference_binary, small_fixture, tmp_path):
         run_phase(PhaseConfig(snp_file=fix["vcf"], bam_files=[fix["bam"]],
                               fasta_file=fix["fasta"],
                               result_prefix=str(ours_dir / "out"),
-                              dot=True, engine="tpu", params=PhaseParams()))
+                              dot=True, engine="device", params=PhaseParams()))
     finally:
         os.chdir(cwd)
     g = open(golden_dir / f"{fix['chrom']}.dot").read()
@@ -42,7 +42,7 @@ def test_haplotag_log(reference_binary, small_fixture, tmp_path):
     subprocess.run([reference_binary, "haplotag", "-s", phased + ".vcf",
                     "-b", fix["bam"], "-r", fix["fasta"], "--log",
                     "-o", golden], check=True, capture_output=True)
-    from longphase_s_tpu.models.haplotag import HaplotagConfig, run_haplotag
+    from longphase_s_jax.models.haplotag import HaplotagConfig, run_haplotag
 
     ours = str(tmp_path / "ours")
     run_haplotag(HaplotagConfig(snp_file=phased + ".vcf", bam_file=fix["bam"],
@@ -60,8 +60,8 @@ def test_haplotag_log(reference_binary, small_fixture, tmp_path):
 
 
 def test_somatic_log(reference_binary, tmp_path):
-    from longphase_s_tpu.models.somatic import SomaticConfig, run_somatic_haplotag
-    from longphase_s_tpu.testing.simulate import make_somatic_fixture
+    from longphase_s_jax.models.somatic import SomaticConfig, run_somatic_haplotag
+    from longphase_s_jax.testing.simulate import make_somatic_fixture
 
     fix = make_somatic_fixture(str(tmp_path / "fix"), seed=5, length=200000,
                                purity=0.5, n_somatic=15, n_artifacts=4)
@@ -94,8 +94,8 @@ def test_somatic_log(reference_binary, tmp_path):
 
 
 def test_somatic_calling_log(reference_binary, tmp_path):
-    from longphase_s_tpu.models.somatic import SomaticConfig, run_somatic_haplotag
-    from longphase_s_tpu.testing.simulate import make_somatic_fixture
+    from longphase_s_jax.models.somatic import SomaticConfig, run_somatic_haplotag
+    from longphase_s_jax.testing.simulate import make_somatic_fixture
 
     fix = make_somatic_fixture(str(tmp_path / "fix"), seed=19, length=220000,
                                purity=0.55, n_somatic=18, n_artifacts=5)

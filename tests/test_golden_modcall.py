@@ -5,8 +5,8 @@ import subprocess
 
 import pytest
 
-from longphase_s_tpu.models.modcall import ModCallConfig, run_modcall
-from longphase_s_tpu.testing.simulate import make_meth_fixture
+from longphase_s_jax.models.modcall import ModCallConfig, run_modcall
+from longphase_s_jax.testing.simulate import make_meth_fixture
 
 
 def _strip(path):
@@ -43,7 +43,7 @@ def test_streaming_modcall_under_memory_cap(tmp_path, monkeypatch):
     """With LPS_MAX_INMEM_BAM below the file size, modcall streams each
     chromosome into a per-chromosome native handle (open_chrom_native_bam)
     and the VCF must stay byte-identical to the whole-file in-memory run."""
-    from longphase_s_tpu import native
+    from longphase_s_jax import native
 
     fix = make_meth_fixture(str(tmp_path / "fix"), seed=23, length=120000,
                             coverage=20, read_len=8000, n_asm=10,
@@ -60,7 +60,7 @@ def test_streaming_modcall_under_memory_cap(tmp_path, monkeypatch):
         used["chrom_handle"] = nb is not None
         return nb
 
-    monkeypatch.setattr("longphase_s_tpu.models.modcall_fast."
+    monkeypatch.setattr("longphase_s_jax.models.modcall_fast."
                         "open_chrom_native_bam", spy)
     monkeypatch.setenv("LPS_MAX_INMEM_BAM", "1000")
     monkeypatch.setenv("LPS_MAX_CHROM_IMAGE", str(64 << 20))
@@ -80,9 +80,9 @@ def test_streaming_modcall_cram_input_under_memory_cap(tmp_path, monkeypatch):
     input past the RAM budget decodes container batches natively
     (CramStreamingBam) into a chromosome handle — VCF must match the BAM
     whole-file run byte-for-byte."""
-    from longphase_s_tpu import native
-    from longphase_s_tpu.io.bam import BamReader
-    from longphase_s_tpu.io.cram import CramWriter
+    from longphase_s_jax import native
+    from longphase_s_jax.io.bam import BamReader
+    from longphase_s_jax.io.cram import CramWriter
 
     fix = make_meth_fixture(str(tmp_path / "fix"), seed=29, length=100000,
                             coverage=18, read_len=8000, n_asm=8,
@@ -107,7 +107,7 @@ def test_streaming_modcall_cram_input_under_memory_cap(tmp_path, monkeypatch):
         used["chrom_handle"] = nb is not None
         return nb
 
-    monkeypatch.setattr("longphase_s_tpu.models.modcall_fast."
+    monkeypatch.setattr("longphase_s_jax.models.modcall_fast."
                         "open_chrom_native_bam", spy)
     monkeypatch.setenv("LPS_MAX_INMEM_BAM", "1000")
     monkeypatch.setenv("LPS_MAX_CHROM_IMAGE", str(64 << 20))

@@ -6,8 +6,8 @@ import subprocess
 
 import pytest
 
-from longphase_s_tpu.core.phase_algo import PhaseParams
-from longphase_s_tpu.models.phase import PhaseConfig, run_phase
+from longphase_s_jax.core.phase_algo import PhaseParams
+from longphase_s_jax.models.phase import PhaseConfig, run_phase
 
 
 def _run_reference(binary, fix, out_prefix, extra=()):
@@ -48,7 +48,7 @@ def assert_vcfs_match(golden, ours):
     assert g == o
 
 
-@pytest.mark.parametrize("engine", ["oracle", "tpu"])
+@pytest.mark.parametrize("engine", ["oracle", "device"])
 def test_phase_clean_reads(reference_binary, small_fixture, tmp_path, engine):
     golden = _run_reference(reference_binary, small_fixture, str(tmp_path / "golden"))
     ours = _run_ours(small_fixture, str(tmp_path / "ours"), engine=engine)
@@ -56,7 +56,7 @@ def test_phase_clean_reads(reference_binary, small_fixture, tmp_path, engine):
 
 
 def test_phase_noisy_reads(reference_binary, tmp_path):
-    from longphase_s_tpu.testing.simulate import make_fixture
+    from longphase_s_jax.testing.simulate import make_fixture
 
     fix = make_fixture(str(tmp_path / "fix"), seed=11, length=150000,
                        coverage=30, read_len=9000, snp_rate=0.002,

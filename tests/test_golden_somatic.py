@@ -5,10 +5,10 @@ import subprocess
 
 import pytest
 
-from longphase_s_tpu.io.bam import BamReader
-from longphase_s_tpu.models.somatic import (SomaticConfig, run_estimate_purity,
+from longphase_s_jax.io.bam import BamReader
+from longphase_s_jax.models.somatic import (SomaticConfig, run_estimate_purity,
                                             run_somatic_haplotag)
-from longphase_s_tpu.testing.simulate import make_somatic_fixture
+from longphase_s_jax.testing.simulate import make_somatic_fixture
 
 
 @pytest.fixture(scope="module")
@@ -144,7 +144,7 @@ def test_somatic_purity_sweep(reference_binary, tmp_path, purity, snp_rate, seed
 
 def test_somatic_benchmark_metrics(reference_binary, somatic_fixture,
                                    phased_normal, tmp_path):
-    from longphase_s_tpu.testing.simulate import write_truth_files
+    from longphase_s_jax.testing.simulate import write_truth_files
 
     fix = somatic_fixture
     truth_vcf, truth_bed = write_truth_files(str(tmp_path), fix["chrom"],
@@ -180,7 +180,7 @@ def test_somatic_benchmark_metrics(reference_binary, somatic_fixture,
 
 def test_somatic_multichrom(reference_binary, tmp_path):
     """Multi-chromosome somatic pipeline: per-chrom loops end-to-end."""
-    from longphase_s_tpu.testing.simulate import make_multichrom_somatic_fixture
+    from longphase_s_jax.testing.simulate import make_multichrom_somatic_fixture
 
     fix = make_multichrom_somatic_fixture(str(tmp_path / "fix"), seed=81)
     phased = str(tmp_path / "phased")
@@ -216,8 +216,8 @@ def test_streaming_somatic_under_memory_cap(reference_binary, somatic_fixture,
     """With LPS_MAX_INMEM_BAM below the file sizes, the somatic pipeline
     runs its extraction and tagging through streaming window handles —
     outputs must stay identical to the reference binary."""
-    from longphase_s_tpu import native
-    from longphase_s_tpu.io.bam import BamReader
+    from longphase_s_jax import native
+    from longphase_s_jax.io.bam import BamReader
 
     golden = str(tmp_path / "golden")
     subprocess.run([reference_binary, "somatic_haplotag", "-s", phased_normal,

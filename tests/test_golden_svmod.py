@@ -5,9 +5,9 @@ import subprocess
 
 import pytest
 
-from longphase_s_tpu.core.phase_algo import PhaseParams
-from longphase_s_tpu.models.phase import PhaseConfig, run_phase
-from longphase_s_tpu.testing.simulate import make_fixture
+from longphase_s_jax.core.phase_algo import PhaseParams
+from longphase_s_jax.models.phase import PhaseConfig, run_phase
+from longphase_s_jax.testing.simulate import make_fixture
 from tests.test_golden_phase import assert_vcfs_match
 
 
@@ -19,7 +19,7 @@ def svmod_fixture(tmp_path_factory):
                         qual=25, n_svs=6, n_mods=8)
 
 
-@pytest.mark.parametrize("engine", ["oracle", "tpu"])
+@pytest.mark.parametrize("engine", ["oracle", "device"])
 def test_phase_sv_mod(reference_binary, svmod_fixture, tmp_path, engine):
     fix = svmod_fixture
     golden = str(tmp_path / "golden")
@@ -40,8 +40,8 @@ def test_phase_sv_mod(reference_binary, svmod_fixture, tmp_path, engine):
 
 
 def test_haplotag_sv_mod(reference_binary, svmod_fixture, tmp_path):
-    from longphase_s_tpu.io.bam import BamReader
-    from longphase_s_tpu.models.haplotag import HaplotagConfig, run_haplotag
+    from longphase_s_jax.io.bam import BamReader
+    from longphase_s_jax.models.haplotag import HaplotagConfig, run_haplotag
 
     fix = svmod_fixture
     phased = str(tmp_path / "phased")
@@ -85,15 +85,15 @@ def test_guard_mod_end_flag(tmp_path, monkeypatch):
 
     import pytest
 
-    from longphase_s_tpu.models.phase import PhaseConfig, run_phase
-    from longphase_s_tpu.testing.simulate import make_fixture
+    from longphase_s_jax.models.phase import PhaseConfig, run_phase
+    from longphase_s_jax.testing.simulate import make_fixture
 
     fx = make_fixture(str(tmp_path / "fix"), seed=66, length=120000,
                       coverage=18, read_len=8000, snp_rate=0.0015,
                       n_svs=2, n_mods=8)
 
     def run(tag, engine):
-        import longphase_s_tpu.core.alleles as al
+        import longphase_s_jax.core.alleles as al
         importlib.reload(al) if False else None  # flag read at call site
         return run_phase(PhaseConfig(
             snp_file=fx["vcf"], bam_files=[fx["bam"]],
@@ -101,24 +101,24 @@ def test_guard_mod_end_flag(tmp_path, monkeypatch):
             mod_file=fx["mod_vcf"], result_prefix=str(tmp_path / tag),
             num_threads=1, is_pb=True, engine=engine))
 
-    import longphase_s_tpu.core.alleles as al
-    from longphase_s_tpu import native as nat
+    import longphase_s_jax.core.alleles as al
+    from longphase_s_jax import native as nat
 
     def python_walker_only():
         # force the pure-Python AlleleExtractor for the oracle run so the
         # flag is exercised in BOTH implementations
         return pytest.MonkeyPatch()
 
-    quirk_tpu = run("q_tpu", "tpu")          # native walk, quirk on
+    quirk_dev = run("q_dev", "device")          # native walk, quirk on
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(nat, "extract_phase", lambda *a, **k: None)
         quirk_oracle = run("q_oracle", "oracle")  # python walk, quirk on
-    assert quirk_tpu == quirk_oracle
+    assert quirk_dev == quirk_oracle
 
     monkeypatch.setenv("LPS_GUARD_MOD_END", "1")
     monkeypatch.setattr(al, "_GUARD_MOD_END", True)
-    guarded_tpu = run("g_tpu", "tpu")        # native walk, guarded
+    guarded_dev = run("g_dev", "device")        # native walk, guarded
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(nat, "extract_phase", lambda *a, **k: None)
         guarded_oracle = run("g_oracle", "oracle")  # python walk, guarded
-    assert guarded_tpu == guarded_oracle
+    assert guarded_dev == guarded_oracle

@@ -2,10 +2,10 @@ import os
 
 import numpy as np
 
-from longphase_s_tpu.io.bam import BamReader
-from longphase_s_tpu.io.bgzf import BgzfReader, BgzfWriter, is_bgzf
-from longphase_s_tpu.io.fasta import FastaFile, write_fasta
-from longphase_s_tpu.io import vcf as vcf_io
+from longphase_s_jax.io.bam import BamReader
+from longphase_s_jax.io.bgzf import BgzfReader, BgzfWriter, is_bgzf
+from longphase_s_jax.io.fasta import FastaFile, write_fasta
+from longphase_s_jax.io import vcf as vcf_io
 
 
 def test_bgzf_roundtrip(tmp_path):
@@ -58,7 +58,7 @@ def test_vcf_het_parse(small_fixture):
 def test_bgzf_span_reader_matches_per_block(small_fixture):
     """The batched native span decode must byte-match the per-block loader
     and keep virtual offsets exact (tell/seek round-trip)."""
-    from longphase_s_tpu.io.bgzf import BgzfReader
+    from longphase_s_jax.io.bgzf import BgzfReader
 
     path = small_fixture["bam"]
     a = BgzfReader(path).read()

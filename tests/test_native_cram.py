@@ -8,10 +8,10 @@ import subprocess
 
 import pytest
 
-from longphase_s_tpu import native
-from longphase_s_tpu.io.bam import BamReader
-from longphase_s_tpu.io.cram import CramReader, CramWriter
-from longphase_s_tpu.io.fasta import FastaFile
+from longphase_s_jax import native
+from longphase_s_jax.io.bam import BamReader
+from longphase_s_jax.io.cram import CramReader, CramWriter
+from longphase_s_jax.io.fasta import FastaFile
 
 
 def _raw_records(reader):

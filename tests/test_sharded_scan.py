@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from longphase_s_tpu.ops.vote_scan import vote_scan_jax
-from longphase_s_tpu.parallel.sharded_scan import (make_site_mesh,
+from longphase_s_jax.ops.vote_scan import vote_scan_jax
+from longphase_s_jax.parallel.sharded_scan import (make_site_mesh,
                                                    sharded_vote_scan)
 
 
@@ -48,8 +48,8 @@ def test_chrom_mesh_matches_per_chromosome():
     import jax.numpy as jnp
     import numpy as np
 
-    from longphase_s_tpu.ops.vote_scan import vote_scan_jax
-    from longphase_s_tpu.parallel.mesh import make_mesh, make_sharded_phase_step
+    from longphase_s_jax.ops.vote_scan import vote_scan_jax
+    from longphase_s_jax.parallel.mesh import make_mesh, make_sharded_phase_step
 
     B, S, W = 8, 128, 35
     rng = np.random.default_rng(7)
@@ -86,7 +86,7 @@ def test_wavefront_scan_matches_per_chromosome(C):
     r-k at round r) must equal per-chromosome single-device scans."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from longphase_s_tpu.parallel.sharded_scan import wavefront_vote_scan
+    from longphase_s_jax.parallel.sharded_scan import wavefront_vote_scan
 
     W, S = 35, 512
     rng = np.random.default_rng(7)

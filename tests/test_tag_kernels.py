@@ -7,8 +7,8 @@ passes (SomaticVarCaller.cpp:112-759), and the somatic tag pass
 
 import pytest
 
-from longphase_s_tpu.io.bam import BamReader
-from longphase_s_tpu.testing.simulate import make_fixture, make_somatic_fixture
+from longphase_s_jax.io.bam import BamReader
+from longphase_s_jax.testing.simulate import make_fixture, make_somatic_fixture
 
 
 def _tags(bam_path, hp_tag="HP"):
@@ -25,15 +25,13 @@ def _tags(bam_path, hp_tag="HP"):
 def engine_env(monkeypatch):
     def set_engine(name):
         monkeypatch.setenv("LPS_TAG_ENGINE", name)
-        monkeypatch.setenv("LPS_STRICT_DEVICE",
-                           "1" if name == "device" else "")
     return set_engine
 
 
 def test_germline_device_parity(tmp_path, engine_env):
-    from longphase_s_tpu.core.phase_algo import PhaseParams
-    from longphase_s_tpu.models.haplotag import HaplotagConfig, run_haplotag
-    from longphase_s_tpu.models.phase import PhaseConfig, run_phase
+    from longphase_s_jax.core.phase_algo import PhaseParams
+    from longphase_s_jax.models.haplotag import HaplotagConfig, run_haplotag
+    from longphase_s_jax.models.phase import PhaseConfig, run_phase
 
     fix = make_fixture(str(tmp_path / "fix"), seed=11, length=150000,
                        coverage=22, read_len=9000, snp_rate=0.0015,
@@ -57,9 +55,9 @@ def test_germline_device_parity(tmp_path, engine_env):
 
 
 def test_somatic_device_parity(tmp_path, engine_env):
-    from longphase_s_tpu.core.phase_algo import PhaseParams
-    from longphase_s_tpu.models.phase import PhaseConfig, run_phase
-    from longphase_s_tpu.models.somatic import (SomaticConfig,
+    from longphase_s_jax.core.phase_algo import PhaseParams
+    from longphase_s_jax.models.phase import PhaseConfig, run_phase
+    from longphase_s_jax.models.somatic import (SomaticConfig,
                                                 run_somatic_haplotag)
 
     fix = make_somatic_fixture(str(tmp_path / "fix"), seed=13, length=220000,
@@ -92,8 +90,8 @@ def test_somatic_device_parity(tmp_path, engine_env):
 
 
 def test_modcall_device_parity(tmp_path, engine_env):
-    from longphase_s_tpu.models.modcall import ModCallConfig, run_modcall
-    from longphase_s_tpu.testing.simulate import make_meth_fixture
+    from longphase_s_jax.models.modcall import ModCallConfig, run_modcall
+    from longphase_s_jax.testing.simulate import make_meth_fixture
 
     fix = make_meth_fixture(str(tmp_path / "fix"), seed=17, length=200000,
                             coverage=20, n_asm=20, n_homo_mod=10)
@@ -113,11 +111,13 @@ def test_modcall_device_parity(tmp_path, engine_env):
 
 def test_engine_selection_and_strictness(monkeypatch):
     """The device offload is work-size gated (per-call dispatch/transfer
-    cost must amortize); LPS_TAG_ENGINE forces either engine outright and
-    LPS_STRICT_DEVICE makes selected-device failures fatal."""
+    cost must amortize); LPS_TAG_ENGINE forces either engine outright.
+    There is no strict mode left to switch: a selected device path either
+    runs or raises, and only inputs outside the int32 domain return None
+    (host path)."""
     monkeypatch.delenv("LPS_TAG_ENGINE", raising=False)
     monkeypatch.delenv("LPS_TAG_DEVICE_MIN", raising=False)
-    from longphase_s_tpu.ops import tag_kernels
+    from longphase_s_jax.ops import tag_kernels
     assert tag_kernels.engine() == "host"                 # no size: host
     assert tag_kernels.engine(100) == "host"              # tiny walk
     assert tag_kernels.engine(tag_kernels.device_min()) == "device"
@@ -127,5 +127,11 @@ def test_engine_selection_and_strictness(monkeypatch):
     assert tag_kernels.engine(1 << 40) == "host"          # forced host
     monkeypatch.setenv("LPS_TAG_ENGINE", "device")
     assert tag_kernels.engine(1) == "device"              # forced device
-    monkeypatch.setenv("LPS_STRICT_DEVICE", "1")
-    assert tag_kernels.strict()
+    monkeypatch.delenv("LPS_TAG_DEVICE_MIN")
+    assert tag_kernels.device_min() == 4_000_000
+    assert not hasattr(tag_kernels, "strict")
+    import numpy as np
+    big_ps = {"pos": np.arange(3), "ps": np.array([1, 2, 1 << 40])}
+    walk = {"category": np.zeros(1, np.uint8),
+            "obs_var": np.zeros(1, np.int64)}
+    assert tag_kernels.germline_counts_device(walk, big_ps, False) is None

@@ -3,10 +3,10 @@ reference-semantics oracle (getOrderWindowsDiffRef), over randomized CIGARs."""
 
 import numpy as np
 
-from longphase_s_tpu.core.somatic_caller import (
+from longphase_s_jax.core.somatic_caller import (
     _SEQ_NT16_ASCII, _get_order_windows_diff_ref, _order_windows_diff_fast,
     get_windows_diff_ref)
-from longphase_s_tpu.io.bam import SEQ_NT16
+from longphase_s_jax.io.bam import SEQ_NT16
 
 
 def _ascii_to_nibbles(seq_ascii):

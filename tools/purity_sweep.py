@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Tumor-purity sweep harness (BASELINE config 5; VERDICT r2 #6).
+"""Tumor-purity sweep harness (BASELINE config 5).
 
 Simulates tumor/normal mixtures at 10-100% purity (fixed 50x tumor / 25x
 normal, the reference README's mixture setup), runs `estimate_purity` with
@@ -31,9 +31,9 @@ CFG = dict(length=1_000_000, normal_coverage=25, tumor_coverage=50,
 
 
 def run_point(purity: float, work: str):
-    from longphase_s_tpu.models.somatic import (SomaticConfig,
+    from longphase_s_jax.models.somatic import (SomaticConfig,
                                                 run_estimate_purity)
-    from longphase_s_tpu.testing.simulate import make_somatic_fixture
+    from longphase_s_jax.testing.simulate import make_somatic_fixture
 
     fix = make_somatic_fixture(os.path.join(work, f"p{purity:0.1f}"),
                                seed=int(purity * 10) + 100, purity=purity,
@@ -83,6 +83,9 @@ def run_point(purity: float, work: str):
 
 
 def main():
+    from longphase_s_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if not os.path.exists(REF_BIN):
         subprocess.run([os.path.join(ROOT, "tools", "build_refbuild.sh")],
                        check=True, timeout=1200)

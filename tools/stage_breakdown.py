@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Per-pipeline stage-time breakdown (VERDICT r2 #2 deliverable).
+"""Per-pipeline stage-time breakdown.
 
 Runs each of the five pipelines on the bench fixtures (warm: second run in
-the same process), captures the StageTimer stderr lines, and writes PERF.md
-with the breakdowns plus the WGS-scale phase numbers from WGS_SOAK.md.
+the same process), captures the StageTimer stderr lines, and writes the
+breakdowns to .bench_cache/stage_breakdown.md.
 
 Usage: python tools/stage_breakdown.py
 """
@@ -18,7 +18,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/lps_tpu_jax_cache")
+OUT = os.path.join(ROOT, ".bench_cache")
 
 STAGE_RE = re.compile(r"^(.*\S)\s*\.\.\.\s*([0-9.]+)s\s*$")
 
@@ -42,13 +42,15 @@ def capture(fn):
 
 def main():
     import bench
-    from longphase_s_tpu.models.haplotag import HaplotagConfig, run_haplotag
-    from longphase_s_tpu.models.modcall import ModCallConfig, run_modcall
-    from longphase_s_tpu.models.phase import PhaseConfig, run_phase
-    from longphase_s_tpu.models.somatic import (SomaticConfig,
+    from longphase_s_jax.utils.compile_cache import enable_compile_cache
+    from longphase_s_jax.models.haplotag import HaplotagConfig, run_haplotag
+    from longphase_s_jax.models.modcall import ModCallConfig, run_modcall
+    from longphase_s_jax.models.phase import PhaseConfig, run_phase
+    from longphase_s_jax.models.somatic import (SomaticConfig,
                                                 run_estimate_purity,
                                                 run_somatic_haplotag)
 
+    enable_compile_cache()
     phase_meta = bench.get_phase_fixture()
     phased = bench.get_phased_vcf(phase_meta)
     som_meta = bench.get_somatic_fixture()
@@ -59,13 +61,13 @@ def main():
     cfg = PhaseConfig(snp_file=phase_meta["vcf"],
                       bam_files=[phase_meta["bam"]],
                       fasta_file=phase_meta["fasta"],
-                      result_prefix="/tmp/sb_phase", engine="tpu")
+                      result_prefix=os.path.join(OUT, "sb_phase"), engine="device")
     out[f"phase ({bench.PHASE_CFG['length'] // 1_000_000} Mbp, "
-        f"{bench.PHASE_CFG['coverage']}x, TPU engine)"] = capture(lambda: run_phase(cfg))
+        f"{bench.PHASE_CFG['coverage']}x, device engine)"] = capture(lambda: run_phase(cfg))
 
     hcfg = HaplotagConfig(snp_file=phased, bam_file=phase_meta["bam"],
                           fasta_file=phase_meta["fasta"],
-                          result_prefix="/tmp/sb_hap")
+                          result_prefix=os.path.join(OUT, "sb_hap"))
     out["haplotag (same BAM)"] = capture(lambda: run_haplotag(hcfg))
 
     scfg = SomaticConfig(snp_file=som_phased,
@@ -73,7 +75,7 @@ def main():
                          bam_file=som_meta["normal_bam"],
                          tumor_bam_file=som_meta["tumor_bam"],
                          fasta_file=som_meta["fasta"],
-                         result_prefix="/tmp/sb_som")
+                         result_prefix=os.path.join(OUT, "sb_som"))
     out[f"somatic_haplotag ({bench.SOMATIC_CFG['length'] // 1_000_000} Mbp pair)"] = capture(
         lambda: run_somatic_haplotag(scfg))
 
@@ -82,21 +84,21 @@ def main():
                          bam_file=som_meta["normal_bam"],
                          tumor_bam_file=som_meta["tumor_bam"],
                          fasta_file=som_meta["fasta"],
-                         result_prefix="/tmp/sb_pur", quality_threshold=20,
+                         result_prefix=os.path.join(OUT, "sb_pur"), quality_threshold=20,
                          tag_supplementary=True)
     out["estimate_purity"] = capture(lambda: run_estimate_purity(pcfg))
 
     mcfg = ModCallConfig(bam_files=[meth_meta["bam"]],
                          fasta_file=meth_meta["fasta"],
                          snp_file=meth_meta["vcf"],
-                         result_prefix="/tmp/sb_mod")
+                         result_prefix=os.path.join(OUT, "sb_mod"))
     out[f"modcall ({bench.METH_CFG['length'] // 1_000_000} Mbp MM/ML)"] = capture(lambda: run_modcall(mcfg))
 
     md = ["# Per-pipeline stage breakdown (bench fixtures, warm)",
           "",
           "Captured from the pipelines' stage timers "
           "(`tools/stage_breakdown.py`); the same format the reference "
-          "prints to stderr. WGS-scale numbers live in WGS_SOAK.md.", ""]
+          "prints to stderr.", ""]
     for name, stages in out.items():
         total = sum(s for _, s in stages)
         md.append(f"## {name} — total {total:.1f}s")
@@ -106,9 +108,9 @@ def main():
         for stage, secs in stages:
             md.append(f"| {stage} | {secs:.2f} |")
         md.append("")
-    with open(os.path.join(ROOT, "PERF.md"), "w") as f:
+    with open(os.path.join(OUT, "stage_breakdown.md"), "w") as f:
         f.write("\n".join(md) + "\n")
-    print("wrote PERF.md")
+    print("wrote .bench_cache/stage_breakdown.md")
 
 
 if __name__ == "__main__":
